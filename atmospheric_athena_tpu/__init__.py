@@ -1,8 +1,8 @@
-"""atmospheric_athena_tpu — a TPU-native (JAX/XLA/Pallas/pjit) framework with
-the capabilities of tripathi/Atmospheric-Athena: finite-volume (M)HD on
-structured grids with plane-parallel ionizing radiative transfer, built
-TPU-first (SPMD over device meshes, functional transforms, whole-grid fused
-kernels) rather than translated from the reference's C/MPI design.
+"""atmospheric_athena_tpu — a JAX framework with the capabilities of
+tripathi/Atmospheric-Athena: finite-volume (M)HD on structured grids with
+plane-parallel ionizing radiative transfer, written as whole-grid array
+programs (SPMD over device meshes, functional transforms) rather than
+translated from the reference's C/MPI design.
 """
 
 from .config import GridConfig, SimConfig

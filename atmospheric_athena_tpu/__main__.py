@@ -9,7 +9,7 @@ Flags mirror the reference binary:
   -t hh:mm:ss wall-time limit: terminate gracefully before it
   block/name=value  parameter overrides (par_cmdline)
 
-plus TPU-native extras:
+plus extras:
   --problem <name>  problem generator (the reference bakes this in at
                     configure time; we select at runtime)
   --dtype float32|float64
@@ -40,7 +40,10 @@ def parse_args(argv):
 
 def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    from . import ParameterDB, Simulation
+    from . import Simulation
+    from .utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     overrides = {}
     if args.dtype:

@@ -88,138 +88,8 @@ def _reflect_normal_face(arr, axis_dim, ng, side):
     return arr.at[tuple(idx)].set(blk)
 
 
-# ---------------------------------------------------------------------------
-# Fused Pallas ghost fill for the common hydro case.  The jnp formulation
-# below chains six full-array dynamic-update-slices, which XLA materializes
-# as full copies (~7 ms per call at 256^3 f32 — and apply_bc runs twice per
-# cycle); this kernel produces the ghost-filled U in ONE read+write pass.
-# Covers outflow/reflect/conductor flags on every active face (all
-# in-block index transforms when the tile size >= 2*nghost); periodic,
-# MHD, shearing and user BCs fall back to the jnp path.
-# ---------------------------------------------------------------------------
-
-_BC_BZ = 8
-_BC_BY = 8
-
-
-def _bc_supported(state, grid, sim, problem) -> bool:
-    import jax
-    import os
-    if os.environ.get("ATHENA_TPU_PALLAS_BC", "1").lower() in (
-            "0", "off", "false"):
-        return False
-    if sim.mhd or sim.shearing_box:
-        return False
-    ng = grid.nghost
-    NZ, NY, NX = grid.padded_shape()
-    if NZ % _BC_BZ or NY % _BC_BY or _BC_BZ < 2 * ng or _BC_BY < 2 * ng \
-            or NX < 2 * ng:
-        return False
-    for axis in range(3):
-        if not grid.active(axis):
-            continue
-        for flag in grid.bc[axis]:
-            if flag not in (BC_OUTFLOW, BC_REFLECT, BC_CONDUCTOR):
-                return False
-    return True
-
-
-def _bc_slab(U, adim, ng, flag, lo: bool, mom):
-    """Ghost slab (ng wide along adim) from the in-VMEM block `U`;
-    mirrors _ghost_block exactly for the supported flags."""
-    n = U.shape[adim]
-    sl = [slice(None)] * U.ndim
-
-    def take(s):
-        idx = list(sl)
-        idx[adim] = s
-        return U[tuple(idx)]
-
-    if flag == BC_OUTFLOW:
-        edge = take(slice(ng, ng + 1) if lo else slice(n - ng - 1, n - ng))
-        reps = [1] * U.ndim
-        reps[adim] = ng
-        return jnp.tile(edge, reps)
-    # reflect / conductor: mirror + negate the normal momentum
-    # (component-sliced concat — a constant sign vector would be a
-    # captured array, which Mosaic kernels reject)
-    blk = jnp.flip(take(slice(ng, 2 * ng) if lo
-                        else slice(n - 2 * ng, n - ng)), axis=adim)
-    return jnp.concatenate([blk[:mom], -blk[mom:mom + 1],
-                            blk[mom + 1:]], axis=0)
-
-
-def _bc_kernel(U_ref, out_ref, *, grid: GridConfig, flags, bz, by, gz, gy):
-    import jax
-    from jax.experimental import pallas as pl
-    ng = grid.nghost
-    U = U_ref[...]
-    # x1 (lanes), then x2, then x3 — the reference's fill order
-    if grid.active(0):
-        lo = _bc_slab(U, 3, ng, flags[0][0], True, IM1)
-        hi = _bc_slab(U, 3, ng, flags[0][1], False, IM1)
-        U = jnp.concatenate([lo, U[..., ng:-ng], hi], axis=3)
-    if grid.active(1):
-        j = pl.program_id(1)
-        lo = _bc_slab(U, 2, ng, flags[1][0], True, IM1 + 1)
-        Ulo = jnp.concatenate([lo, U[:, :, ng:, :]], axis=2)
-        U = jnp.where(j == 0, Ulo, U)
-        hi = _bc_slab(U, 2, ng, flags[1][1], False, IM1 + 1)
-        Uhi = jnp.concatenate([U[:, :, :-ng, :], hi], axis=2)
-        U = jnp.where(j == gy - 1, Uhi, U)
-    if grid.active(2):
-        i = pl.program_id(0)
-        lo = _bc_slab(U, 1, ng, flags[2][0], True, IM1 + 2)
-        Ulo = jnp.concatenate([lo, U[:, ng:, :, :]], axis=1)
-        U = jnp.where(i == 0, Ulo, U)
-        hi = _bc_slab(U, 1, ng, flags[2][1], False, IM1 + 2)
-        Uhi = jnp.concatenate([U[:, :-ng, :, :], hi], axis=1)
-        U = jnp.where(i == gz - 1, Uhi, U)
-    out_ref[...] = U
-
-
-def _apply_bc_pallas(state: State, grid: GridConfig, sim: SimConfig):
-    import functools
-
-    import jax
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    U = state.U
-    nv, NZ, NY, NX = U.shape
-    bz, by = _BC_BZ, _BC_BY
-    gz, gy = NZ // bz, NY // by
-    blk = (nv, bz, by, NX)
-    spec = pl.BlockSpec(blk, lambda i, j: (0, i, j, 0))
-    interp = jax.default_backend() not in ("tpu",)
-    cp = (pltpu.CompilerParams(vmem_limit_bytes=100 * 1024 * 1024)
-          if not interp else None)
-    out = pl.pallas_call(
-        functools.partial(_bc_kernel, grid=grid, flags=grid.bc, bz=bz,
-                          by=by, gz=gz, gy=gy),
-        grid=(gz, gy),
-        in_specs=[spec],
-        out_specs=spec,
-        out_shape=jax.ShapeDtypeStruct(U.shape, U.dtype),
-        interpret=interp,
-        compiler_params=cp,
-    )(U)
-    return state.replace(U=out)
-
-
 def apply_bc(state: State, grid: GridConfig, sim: SimConfig,
              problem=None) -> State:
-    """Fill all ghost zones of U (and Bcc/B*i for MHD)."""
-    if problem is None or not any(
-            getattr(problem, f"bc_{s}x{a}", None) is not None
-            for s in ("i", "o") for a in (1, 2, 3)):
-        if _bc_supported(state, grid, sim, problem):
-            return _apply_bc_pallas(state, grid, sim)
-    return _apply_bc_jnp(state, grid, sim, problem)
-
-
-def _apply_bc_jnp(state: State, grid: GridConfig, sim: SimConfig,
-                  problem=None) -> State:
     """Fill all ghost zones of U (and Bcc/B*i for MHD)."""
     ng = grid.nghost
     U = state.U

@@ -44,7 +44,6 @@ class SimConfig:
     dtype: str = "float64"        # --enable-single-precision toggles Real
     gamma: float = 5.0 / 3.0      # <problem>/gamma
     iso_csound: float = 1.0       # <problem>/iso_csound
-    use_pallas: str = "auto"      # fused TPU kernels: auto | on | off
     special_relativity: bool = False  # --enable-special-relativity
     shearing_box: bool = False    # --enable-shearing-box (3D/2D-xy)
     fargo: bool = False           # --enable-fargo (orbital advection)
@@ -102,22 +101,6 @@ class SimConfig:
     def jnp_dtype(self):
         import jax.numpy as jnp
         return jnp.dtype(self.dtype)
-
-    @property
-    def pallas_enabled(self) -> bool:
-        """Resolve the fused-kernel switch: 'on'/'off' are explicit; 'auto'
-        follows ATHENA_TPU_PALLAS or enables on a real TPU backend (the
-        interpreter fallback off-TPU is only for tests)."""
-        if self.use_pallas == "on":
-            return True
-        if self.use_pallas == "off":
-            return False
-        import os
-        env = os.environ.get("ATHENA_TPU_PALLAS")
-        if env is not None:
-            return env.lower() not in ("0", "off", "false")
-        import jax
-        return jax.default_backend() == "tpu"
 
 
 # Boundary-condition flags, matching <domainN>/bc_ix1 etc.

@@ -1,6 +1,6 @@
 """Global constants and variable-index conventions.
 
-TPU-native re-design of the compile-time configuration of the reference
+Array-program re-design of the compile-time configuration of the reference
 (/root/reference/src/defs.h.in).  Where the reference selects physics with C
 preprocessor macros (HYDRO/MHD, ADIABATIC/ISOTHERMAL, NSCALARS, ...), we carry
 the same information as runtime configuration (see config.py) and keep only

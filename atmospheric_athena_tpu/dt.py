@@ -29,10 +29,6 @@ def max_dti(state: State, sim: SimConfig, grid: GridConfig):
         import jax.numpy as _jnp
         return _jnp.asarray(dti, state.U.dtype)
 
-    from .ops import pallas_util
-    if pallas_util.supported(sim, grid) and not grid.cylindrical:
-        return pallas_util.max_dti_hydro(state.U, sim, grid)
-
     sl = grid.interior()
     U = state.U[(slice(None),) + sl]
     di = 1.0 / U[ID]

@@ -8,7 +8,7 @@ sweeps per level on the way down, residual restriction to half
 resolution until a dimension reaches 4 cells, prolongation + 11 more
 sweeps on the way up.
 
-TPU-native mapping — every stage is a dense vectorized array op:
+Array mapping — every stage is a dense vectorized array op:
 
   Jacobi        —  one fused 7-point stencil update over the whole
                    level per iteration (lax.fori_loop of 11);

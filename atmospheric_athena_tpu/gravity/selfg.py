@@ -2,7 +2,7 @@
 (reference: src/gravity/selfg_fft.c, selfg.c).
 
 The reference solves ∇²Φ = 4πG(ρ−ρ̄) with Plimpton's MPI block FFT
-(fftsrc/); TPU-native this is jnp.fft.fftn — under pjit XLA shards the
+(fftsrc/); here this is jnp.fft.fftn — under pjit XLA shards the
 transposes over the mesh (SURVEY.md §2.4 row 7).  The Green's function is
 the DISCRETE Laplacian's, G(k) = 1/Σ_a (2cos(k_a·Δ_a... index form)−2)/Δa²
 (selfg_fft.c:~154-200), so ∇²_discrete Φ = 4πG δρ holds to roundoff — the
@@ -94,7 +94,7 @@ def solve_phi_obc(d_active, grid: GridConfig, four_pi_G: float):
     """Open (isolated) boundary Poisson solve via the zero-padded FFT
     convolution (Hockney & Eastwood; reference selfg_fft_obc.c solves the
     disk-geometry variant with complex phase offsets — here the general
-    3D James/Hockney doubling, the TPU-native formulation).
+    3D James/Hockney doubling, as whole-array FFTs).
 
     Pads the density into a domain doubled along every active axis,
     convolves with the point-mass kernel G(r) = -four_pi_G/(4 pi r)

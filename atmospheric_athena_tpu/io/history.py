@@ -84,7 +84,7 @@ class HistoryWriter:
                                                   self.user)]
         with open(self.path, "a") as fh:
             if not self._wrote_header:
-                fh.write("# Athena (TPU) history dump\n#")
+                fh.write("# Athena history dump\n#")
                 for i, n in enumerate(history_names(self.sim, self.user)):
                     fh.write(f"   [{i + 1}]={n}")
                 fh.write("\n")

@@ -81,6 +81,9 @@ class OutputSet:
                 else None,
                 palette=par.gets_def(blk, "palette", "rainbow"),
                 ranges=ranges,
+                # first output time (output.c: par_getd_def(.., "time",
+                # pM->time))
+                t_next=par.getd_def(blk, "time", 0.0),
                 usr_expr_flag=par.geti_def(blk, "usr_expr_flag", 0) == 1))
         self._hst = {}
         os.makedirs(outdir, exist_ok=True)

@@ -53,6 +53,8 @@ def load_checkpoint(path: str):
                       xmax=tuple(gmeta["xmax"]),
                       bc=tuple(tuple(b) for b in gmeta["bc"]),
                       nghost=gmeta["nghost"])
-    sim = SimConfig(**meta["sim"])
+    # options a newer SimConfig no longer has are dropped
+    sim = SimConfig(**{k: v for k, v in meta["sim"].items()
+                       if k in SimConfig.__dataclass_fields__})
     par = ParameterDB.from_string(meta["par"])
     return state, sim, grid, par

@@ -50,14 +50,6 @@ class IonConfig:
     # the reference hardwires the erf inlet-flux time ramp at Level 0
     # (ionradplane_3d.c:263-272); disable for problems without it
     time_ramp: bool = True
-    # sub-iterations per fused kernel launch (VERDICT r4 item 1): K > 1
-    # runs K explicit substeps in one VMEM-resident Pallas kernel with a
-    # conservatively shrunk dt schedule (validated in-kernel, with a
-    # reference-exact fallback on violation).  K = 1 is the
-    # reference-exact path; K > 1 trades the per-substep global dt
-    # minimum for ~K-fold less HBM traffic — opt-in perf mode
-    # (<ionradiation> batch_iters)
-    batch_iters: int = 1
 
 
 def ion_config_from_par(par: ParameterDB, grid: GridConfig,
@@ -83,5 +75,4 @@ def ion_config_from_par(par: ParameterDB, grid: GridConfig,
         max_de_therm_step=g("max_de_therm_step"),
         max_dx_step=g("max_dx_step"), tfloor=g("tfloor"), tceil=g("tceil"),
         maxiter=int(g("maxiter")), min_area=min_area, d_nlo=d_nlo,
-        radplanes=tuple(radplanes), time_ramp=time_ramp,
-        batch_iters=int(par.getd_def("ionradiation", "batch_iters", 1)))
+        radplanes=tuple(radplanes), time_ramp=time_ramp)

@@ -2,7 +2,7 @@
 src/ionradiation/ionradplane_3d.c:88-407, get_ph_rate_plane).
 
 The per-column attenuation recurrence F_{i+1} = F_i·exp(−τ_i)
-(ionradplane_3d.c:278-307) is a prefix product — TPU-native it becomes a
+(ionradplane_3d.c:278-307) is a prefix product — here it becomes a
 cumulative product along the sweep axis (an associative scan, O(log N) depth
 on hardware, and the building block for the distributed ppermute-carried
 version in parallel/).  The MINFLUXFRAC early-exit that zeroes all downstream
@@ -101,12 +101,12 @@ def get_ph_rate_plane_dist(s0, inflow, direction: int, grid: GridConfig,
 
     The reference parallelizes the attenuation recurrence as a rank
     pipeline along the radiation axis (ionradplane_3d.c:226-318); the
-    TPU-native equivalent (SURVEY.md §5.7) is a blockwise two-pass scan:
+    array equivalent (SURVEY.md §5.7) is a blockwise two-pass scan:
     each x-shard computes its local cumulative transmittance, the per-shard
     totals are combined with a ppermute-carried exclusive scan (O(log P)
     collective steps), and the local faces are offset by the incoming
     prefix.  Reassociates the product — equal to the serial sweep to
-    roundoff, like the Pallas in-VMEM scan.
+    roundoff.
 
     Returns (kph [sharded like s0], edge_left [Nz,Ny,Nx sharded],
     edge_shard_exits [Nz,Ny,P]) — the global downstream face is

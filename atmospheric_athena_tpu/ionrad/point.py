@@ -5,7 +5,7 @@ tracing module).
 The reference builds ADAPTIVE ray trees: 12*4^l HEALPix rays per source,
 each ray marched cell by cell with MPI-buffered hand-offs, rays split as
 they leave the source so every cell is crossed by >= MINRAYNUMBER rays
-(ionradpoint_3d.c:9-51).  The TPU-native redesign replaces the adaptive
+(ionradpoint_3d.c:9-51).  The array redesign replaces the adaptive
 tree + per-cell marching with a DENSE fixed-resolution ray fan evaluated
 as three vectorized primitives:
 

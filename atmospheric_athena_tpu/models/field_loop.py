@@ -3,7 +3,7 @@
 A weak magnetic loop (from the vector potential A3 = A0*(rad - r) inside
 r < rad) advected by a uniform flow; the classic CT divergence-preservation
 test.  The interface field comes from utils.vecpot_to_b_interface — the
-TPU-native vecpot2b*i (utils.c) — so div(B) = 0 to roundoff at t=0 and CT
+whole-grid vecpot2b*i (utils.c) — so div(B) = 0 to roundoff at t=0 and CT
 keeps it there.
 
 <problem>: rad, amp, vflow [, drat=1], iprob=1 (the loop in the x1-x2

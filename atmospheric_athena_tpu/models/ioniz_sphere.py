@@ -151,9 +151,8 @@ class IonizSphere:
 
     def userwork_aux(self, dtype, sim: SimConfig, grid: GridConfig):
         """Constant fields for userwork_in_loop, exposed so drivers can
-        pass them through jit as ARGUMENTS (embedding them as trace-time
-        constants bloats the serialized program past the remote-compile
-        limit at production sizes)."""
+        pass them through jit as arguments (as trace-time constants they
+        would be baked into the executable at production sizes)."""
         return self._reset_fields(dtype, sim, grid)
 
     def userwork_in_loop(self, state, sim: SimConfig, grid: GridConfig,

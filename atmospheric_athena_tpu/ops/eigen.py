@@ -6,7 +6,7 @@ by PLM/PPM characteristic projection) and
 /root/reference/src/rsolvers/esystem_roe.c (Roe-averaged conserved variables,
 used by the Roe flux and the H-correction).
 
-TPU-first design: instead of filling NWAVE×NWAVE matrices per cell (the
+Design: instead of filling NWAVE×NWAVE matrices per cell (the
 reference's per-cell scalar code), eigenmatrices are *sparse symbolic* objects
 — nested Python lists whose entries are either broadcastable jnp arrays or the
 literal floats 0.0/±1.0.  `lmul`/`rmul` contract them against stacked variable

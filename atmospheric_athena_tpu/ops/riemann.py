@@ -159,8 +159,8 @@ def roe(Ul, Ur, Wl, Wr, Bxi, sim: SimConfig, etah=None, branchless=False,
     and H-correction via `etah` (roe.c:295-300).
 
     branchless=True always evaluates the HLLE fallback and blends with
-    jnp.where (identical values) — required inside Pallas kernels, and free
-    when the computation is HBM-bound.
+    jnp.where (identical values) — free when the computation is
+    memory-bound.
 
     return_pflux: also return the cylindrical interface pressure
     (roe.c:326-332 star-state average; supersonic branches return Wl.P

@@ -1,6 +1,6 @@
 """Device meshes and state shardings.
 
-TPU-native replacement for the reference's MPI domain decomposition
+Replacement for the reference's MPI domain decomposition
 (init_mesh.c:540 dom_decomp + per-rank GridS): the state stays ONE logical
 array per field, sharded over a 3-D ('z','y','x') device mesh with
 jax.sharding.NamedSharding.  Under jit, XLA GSPMD inserts the halo

@@ -9,7 +9,7 @@ ppermute pair per mesh axis up front, and then runs the UNMODIFIED serial
 CTU step on its local padded block.  All stencil communication happens in
 that single prologue exchange, so XLA's latency-hiding scheduler can
 overlap the ppermutes with the start of the (halo-independent) interior
-compute — the TPU-native version of the reference's
+compute — the array-program version of the reference's
 interior/boundary-partition overlap strategy (SURVEY.md §5.8).
 
 Correctness argument: the local padded block is the device's slice of the

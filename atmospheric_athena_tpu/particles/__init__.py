@@ -1,4 +1,4 @@
-"""Lagrangian particles (dust grains) — TPU-native re-design of
+"""Lagrangian particles (dust grains) — array re-design of
 src/particles/ (integrators_particle.c, utils_particle.c, feedback.c,
 bvals_particle.c, init_particle.c; ~7.1k LoC of per-particle C loops).
 

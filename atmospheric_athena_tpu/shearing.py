@@ -15,7 +15,7 @@ RemapEy averages the y-EMF on the two x1 boundary faces with the remapped
 opposite face so the CT update conserves net Bz exactly
 (bvals_shear.c RemapEy_ix1/_ox1; applied by the integrator).
 
-TPU-first notes: joffset/eps are TRACED scalars (functions of t inside
+Design notes: joffset/eps are TRACED scalars (functions of t inside
 the jitted step); the integer shift is a jnp.roll with a traced shift and
 the fractional remap is branch-free PLM arithmetic, so the whole remap
 jits into the step.  Serial (single-shard) x1 boundaries; the multichip

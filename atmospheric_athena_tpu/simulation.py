@@ -239,9 +239,9 @@ class Simulation:
                 time_ramp=getattr(problem, "time_ramp", True))
             self.ion = ion
 
-        # large constant fields travel through jit as ARGUMENTS (not
-        # trace-time constants — those inflate the serialized program past
-        # the remote-compile payload limit at production sizes)
+        # large constant fields travel through jit as arguments (as
+        # trace-time constants they would be baked into the executable,
+        # hundreds of MB at production sizes)
         dtype = self.state.U.dtype
         if grid.cylindrical:
             from .integrators.cyl import _phi_arrays as _cyl_phi

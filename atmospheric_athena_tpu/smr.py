@@ -2,7 +2,7 @@
 the ionizing-radiation couplings (reference: src/smr.c, src/init_grid.c
 overlap setup, src/ionradiation/ionrad_smr.c).
 
-TPU-native formulation: each level's Domain is a dense padded State; the
+Array formulation: each level's Domain is a dense padded State; the
 parent/child couplings are reshape-means (restriction), slice updates
 (flux correction at the fine/coarse boundary), and vectorized monotonized
 slope interpolation (prolongation) — no per-overlap message plumbing, the

@@ -1,6 +1,6 @@
 """Simulation state pytree.
 
-TPU-native data model replacing the reference's MeshS→DomainS→GridS
+Data model replacing the reference's MeshS→DomainS→GridS
 arrays-of-structs (src/athena.h:254-425) with a structure-of-arrays pytree:
 dense [nvar, Nz(+2g), Ny(+2g), Nx(+2g)] arrays including ghost zones, so halo
 exchange and ``allclose`` comparisons against the reference's padded grids are
@@ -26,17 +26,18 @@ Fields:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from . import defs
 from .config import GridConfig, SimConfig
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class State:
     U: jax.Array
     time: jax.Array
@@ -47,6 +48,9 @@ class State:
     B2i: Optional[jax.Array] = None
     B3i: Optional[jax.Array] = None
     Eflux: Optional[jax.Array] = None
+
+    def replace(self, **changes) -> "State":
+        return dataclasses.replace(self, **changes)
 
 
 def zeros(sim: SimConfig, grid: GridConfig) -> State:

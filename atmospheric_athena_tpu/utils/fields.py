@@ -3,7 +3,7 @@
 
 The reference initializes divergence-free interface fields by Simpson-rule
 line integrals of a user vector potential along cell edges (utils.c
-vecpot2b*i with qsimp).  TPU-native, the same contract is met with exact
+vecpot2b*i with qsimp).  Here the same contract is met with exact
 edge integrals evaluated by fixed-order Gauss-Legendre quadrature over
 whole-grid coordinate arrays — for the polynomial/trigonometric potentials
 of the standard problems (field_loop, cpaw, linear_wave) this matches the

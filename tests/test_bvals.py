@@ -17,8 +17,8 @@ import numpy as np
 import pytest
 
 from atmospheric_athena_tpu import bvals, state as state_mod
-from atmospheric_athena_tpu.config import (BC_CONDUCTOR, BC_REFLECT,
-                                           GridConfig, SimConfig)
+from atmospheric_athena_tpu.config import (BC_CONDUCTOR, BC_OUTFLOW,
+                                           BC_REFLECT, GridConfig, SimConfig)
 
 
 def _random_state(sim, grid, seed=0):
@@ -122,3 +122,50 @@ class TestReflectMHD:
         for f in ("U", "Bcc", "B1i", "B2i", "B3i"):
             np.testing.assert_array_equal(np.asarray(getattr(st, f)),
                                           np.asarray(getattr(st_c, f)))
+
+
+def _ref_hydro_fill(U, flag, ng):
+    """Ghost fill of a hydro U [nvar, z, y, x] straight from the index
+    relations of bvals_mhd.c, x1 then x2 then x3 (:170-171), each pass over
+    the full extent of the other axes:
+
+      outflow_ix1   U[is-i] = U[is]                          (i=1..ng)
+      reflect_ix1   U[is-i] = U[is+(i-1)], M_normal negated
+      (and mirrored at ie; conductor dispatches to reflect_*)
+    """
+    U = U.copy()
+    for axis in range(3):
+        ad = 3 - axis
+        n = U.shape[ad]
+        for i in range(1, ng + 1):
+            if flag == BC_OUTFLOW:
+                pairs = ((ng - i, ng), (n - ng - 1 + i, n - ng - 1))
+            else:
+                pairs = ((ng - i, ng + i - 1), (n - ng - 1 + i, n - ng - i))
+            for dst, src in pairs:
+                blk = np.take(U, src, axis=ad).copy()
+                if flag != BC_OUTFLOW:
+                    blk[1 + axis] *= -1.0
+                idx = [slice(None)] * U.ndim
+                idx[ad] = dst
+                U[tuple(idx)] = blk
+    return U
+
+
+@pytest.mark.parametrize("flag", [BC_OUTFLOW, BC_REFLECT, BC_CONDUCTOR],
+                         ids=["outflow", "reflect", "conductor"])
+def test_hydro_ghost_fill_3d(flag):
+    """The production ghost fill (hydro, one passive scalar, every face
+    the same flag) matches the reference's index relations exactly."""
+    sim = SimConfig(gas="hydro", eos="adiabatic", gamma=5.0 / 3.0,
+                    nscalars=1)
+    grid = GridConfig(Nx=(12, 10, 8), bc=((flag, flag),) * 3)
+    rng = np.random.default_rng(1)
+    st0 = state_mod.zeros(sim, grid)
+    st0 = st0.replace(U=jnp.asarray(rng.normal(size=st0.U.shape) + 3.0))
+    out = np.asarray(bvals.apply_bc(st0, grid, sim).U)
+    U0 = np.asarray(st0.U)
+    np.testing.assert_array_equal(out, _ref_hydro_fill(U0, flag,
+                                                       grid.nghost))
+    sl = (slice(None),) + grid.interior()
+    np.testing.assert_array_equal(out[sl], U0[sl])

@@ -103,8 +103,8 @@ def test_blast_2level_matches_reference():
 
 @pytest.mark.slow
 def test_blast_3level_matches_reference():
-    """3-LEVEL hierarchy vs the reference --enable-smr build (VERDICT r3
-    item 3: every earlier SMR test was 2-level).  Exercises the general
+    """3-LEVEL hierarchy vs the reference --enable-smr build (every
+    earlier SMR test was 2-level).  Exercises the general
     Domain tree with a grandchild: restriction and flux correction
     through two levels, prolongation root->lev1->lev2.  5 cycles at
     machine precision (cycle 6 hits a Roe-fallback branch flip on a

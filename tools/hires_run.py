@@ -1,19 +1,25 @@
 """Run the flagship 5-level SMR production deck
 (tst/massloss/athinput.ioniz_sphere_hires) end-to-end for N cycles on the
-real chip and record sanity metrics (finiteness, mass, timing) to
-SMR_HIRES_r04.json."""
+GPU and record sanity metrics (finiteness, mass, timing) to
+chiprun_out/smr_hires.json.
+
+    python tools/hires_run.py <path/to/athinput.ioniz_sphere_hires>"""
 import json, os, sys, time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 import jax, jax.numpy as jnp
-jax.config.update('jax_compilation_cache_dir',
-                  os.path.join(REPO, '.jax_cache'))
-jax.config.update('jax_persistent_cache_min_compile_time_secs', 1.0)
 import numpy as np
 from atmospheric_athena_tpu import ParameterDB, Simulation
+from atmospheric_athena_tpu.utils.cache import enable_compile_cache
+from atmospheric_athena_tpu.utils.device import nvidia_smi, require_gpu
+
+require_gpu()
+enable_compile_cache()
+OUT = os.path.join(REPO, 'chiprun_out', 'smr_hires.json')
+os.makedirs(os.path.dirname(OUT), exist_ok=True)
 
 NCYC = int(os.environ.get('HIRES_NCYC', '10'))
-par = ParameterDB.from_file('/root/reference/tst/massloss/athinput.ioniz_sphere_hires')
+par = ParameterDB.from_file(sys.argv[1])
 par.set('ionradiation', 'maxiter', int(os.environ.get('HIRES_MAXITER', '10000')))
 s = Simulation.from_par(par, problem='ioniz_sphere', dtype='float32')
 print('levels:', [(l.lev, l.grid.Nx) for l in s.levels], flush=True)
@@ -42,7 +48,7 @@ def snapshot(ncyc_done, wall):
                finite=finite, level_masses=masses,
                levels=[list(l.grid.Nx) for l in s.levels],
                traj_tail=rows[-5:])
-    with open(os.path.join(REPO, 'SMR_HIRES_r04.json'), 'w') as f:
+    with open(OUT, 'w') as f:
         json.dump(out, f, indent=1)
 
 
@@ -68,7 +74,7 @@ out = dict(ncyc=ncyc_done, wall_after_first=wall,
            zc_per_s=zones * len(rows) / wall if wall > 0 else None,
            time=float(s.state.time), dt=float(s.state.dt),
            finite=finite, level_masses=masses,
-           levels=[list(l.grid.Nx) for l in s.levels])
+           levels=[list(l.grid.Nx) for l in s.levels], card=nvidia_smi())
 print(json.dumps(out), flush=True)
-with open(os.path.join(REPO, 'SMR_HIRES_r04.json'), 'w') as f:
+with open(OUT, 'w') as f:
     json.dump(out, f, indent=1)
