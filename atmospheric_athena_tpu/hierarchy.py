@@ -101,6 +101,12 @@ def grids_from_par(par: ParameterDB):
     return doms
 
 
+def _bytes_limit():
+    """Device memory JAX may allocate on the first device; None on a
+    device that reports no limit (the CPU)."""
+    return (jax.devices()[0].memory_stats() or {}).get("bytes_limit")
+
+
 class MeshSimulation:
     """Multi-level SMR driver.  API mirrors Simulation (step/run/state)."""
 
@@ -113,6 +119,9 @@ class MeshSimulation:
         self.tlim = par.getd_def("time", "tlim", 1.0)
         self.nlim = par.geti_def("time", "nlim", -1)
         self._jit_step = None
+        # set by the first step(): whether the cycle runs phased, and the
+        # compiled whole cycle's peak bytes that decided it
+        self.phased, self.whole_peak_bytes = False, None
 
     # ------------------------------------------------------------------
     @classmethod
@@ -198,7 +207,7 @@ class MeshSimulation:
         phased=False jits the whole multi-level cycle as ONE program —
         lowest overhead, but XLA's peak allocation spans every level's
         integrator temporaries at once.  phased=True (chosen when the
-        whole cycle would not fit in device memory, see _use_phased)
+        whole cycle would not fit in device memory, see _choose_step)
         keeps the cycle as a host loop over per-level jitted pieces so
         device memory peaks at one level's working set; inter-level glue
         (inlet slabs, dt min) runs eagerly on tiny arrays.
@@ -340,8 +349,11 @@ class MeshSimulation:
             planes = []
             new_states = []
             for li in range(nlev):
-                def hyd(s, d, phi_, _li=li):
-                    out = integ_step(_li)(s, d, sim, grids[_li],
+                # U travels apart from the rest of the state so phased mode
+                # donates only U: the levels share their time/dt/nstep
+                # buffers
+                def hyd(U, s, d, phi_, _li=li):
+                    out = integ_step(_li)(s.replace(U=U), d, sim, grids[_li],
                                           probs[_li], return_fluxes=True,
                                           phi=phi_)
                     if sim.mhd:
@@ -372,7 +384,8 @@ class MeshSimulation:
                         pk[f"child{ci}"] = cp
                     return snew, pk
                 snew, pk = J(("hydro", li), hyd, donate=(0,))(
-                    states[li], dt, auxs[li][0])
+                    states[li].U, states[li].replace(U=None), dt,
+                    auxs[li][0])
                 new_states.append(sync(snew))
                 planes.append(pk)
             states = new_states
@@ -488,30 +501,37 @@ class MeshSimulation:
 
         return step if phased else jax.jit(step)
 
-    # peak device bytes per padded zone of the whole-cycle f32 step:
-    # compiled.memory_analysis() (arguments + outputs + temporaries) of the
-    # 256^3 ioniz_sphere production step is 11.31 GB over 264^3 padded
-    # zones on an NVIDIA H100 80GB HBM3 (700 W power limit)
-    STEP_BYTES_PER_ZONE = 615
+    # headroom kept between the compiled whole cycle's peak and the
+    # device's limit: the 256^3 uniform step's peak_bytes_in_use was 1.007x
+    # its memory_analysis() on an NVIDIA H100 80GB HBM3 (700 W)
+    PEAK_MARGIN = 1.25
 
-    def _use_phased(self) -> bool:
-        """Phased mode when the whole cycle's estimated peak exceeds the
-        device's memory; a device that reports no limit (the CPU) runs the
-        whole cycle as one program."""
-        import numpy as np
-        stats = jax.devices()[0].memory_stats() or {}
-        limit = stats.get("bytes_limit")
+    def _choose_step(self, states):
+        """The whole cycle as one compiled program when its peak, with
+        PEAK_MARGIN, fits the device's memory; the phased cycle otherwise.
+        A device that reports no limit (the CPU) runs the whole cycle and
+        compiles nothing here."""
+        whole = self._build_step(phased=False)
+        limit = _bytes_limit()
+        self.phased, self.whole_peak_bytes = False, None
         if not limit:
-            return False
-        zones = sum(int(np.prod(l.grid.padded_shape())) for l in self.levels)
-        itemsize = self.levels[0].state.U.dtype.itemsize
-        return zones * self.STEP_BYTES_PER_ZONE * itemsize / 4 > limit
+            return whole
+        ma = whole.lower(states, self._step_aux).compile().memory_analysis()
+        # the jit reuses this executable on its first call
+        self.whole_peak_bytes = (ma.argument_size_in_bytes
+                                 + ma.output_size_in_bytes
+                                 + ma.temp_size_in_bytes
+                                 - ma.alias_size_in_bytes)
+        if self.whole_peak_bytes * self.PEAK_MARGIN <= limit:
+            return whole
+        self.phased = True
+        return self._build_step(phased=True)
 
     def step(self):
+        states = [l.state for l in self.levels]
         if self._jit_step is None:
-            self._jit_step = self._build_step(phased=self._use_phased())
-        new_states = self._jit_step([l.state for l in self.levels],
-                                    self._step_aux)
+            self._jit_step = self._choose_step(states)
+        new_states = self._jit_step(states, self._step_aux)
         for l, s in zip(self.levels, new_states):
             l.state = s
 

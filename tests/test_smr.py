@@ -134,3 +134,41 @@ def test_blast_3level_matches_reference():
                 U[k], gold[f"{pre}_{n}"], rtol=0,
                 atol=1e-12 * max(scale, 1e-30),
                 err_msg=f"level {li} field {n}")
+
+
+def _blast2lev_small():
+    par = ParameterDB.from_file(os.path.join(GOLD, "athinput.blast2lev"))
+    for dom, n in (("domain1", 8), ("domain2", 8)):
+        for a in "123":
+            par.set(dom, f"Nx{a}", n)
+    for a in "ijk":
+        par.set("domain2", f"{a}Disp", 4)
+    return MeshSimulation.from_par(par, problem="blast")
+
+
+@pytest.mark.parametrize("limit", [None, 10 ** 15, 1])
+def test_phased_choice_from_compiled_peak(monkeypatch, limit):
+    """The whole cycle runs as one program unless its compiled peak, with
+    the margin, exceeds the device's limit; no limit (the CPU) compiles
+    nothing extra.  The phased cycle gives the whole cycle's result."""
+    from atmospheric_athena_tpu import hierarchy
+    monkeypatch.setattr(hierarchy, "_bytes_limit", lambda: limit)
+    s = _blast2lev_small()
+    s.step()
+    s.step()
+    assert s.phased == (limit == 1)
+    if limit is None:
+        assert s.whole_peak_bytes is None
+        return
+    assert s.whole_peak_bytes > 0
+    if not s.phased:
+        return
+    monkeypatch.setattr(hierarchy, "_bytes_limit", lambda: None)
+    ref = _blast2lev_small()
+    ref.step()
+    ref.step()
+    assert float(s.state.time) == float(ref.state.time)
+    for a, b in zip(s.levels, ref.levels):
+        Ua, Ub = np.asarray(a.state.U), np.asarray(b.state.U)
+        np.testing.assert_allclose(Ua, Ub, rtol=0,
+                                   atol=1e-13 * np.abs(Ub).max())
